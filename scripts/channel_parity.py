@@ -1,21 +1,11 @@
-"""Fused-channel validation on real TPU hardware, two independent ways:
-
-1. FER consistency vs the float channel (companion to
-   docs/refcheck_fer_compare): same config, same SNR points, independent
-   random streams; the two FERs must agree within Monte-Carlo error
-   (two-proportion z-test).  Rows cover QPSK waterfall, BPSK (its own
-   sigma convention), and a 4.0 dB floor-region sigma (with a weakened
-   2-iteration decoder so frame errors stay countable - the channel
-   thresholds being validated depend only on sigma/scale, not on the
-   decoder strength).
-
-2. LLR-histogram law check: the staircase outputs of the TPU kernel,
-   histogrammed over ~1e9 draws, vs the float64-erfc analytic
-   probabilities of each quantizer bin (an oracle independent of the
-   float32-ndtr threshold construction in ops/pallas_channel.py).  This
-   pins the deep-tail steps (|q|=7 wrong-sign at 4.0 dB has p ~ 1e-7)
-   that FER statistics cannot resolve - exactly the regime the
-   strict-compare threshold fix (round-3) changed.
+"""Quantile-channel validation: FER consistency vs the float channel
+(companion to docs/refcheck_fer_compare.md).  Same config, same SNR
+points, independent random streams; the two FERs and the pre-decoder
+BERs must agree within Monte-Carlo error (two-proportion z-test).  Rows
+cover QPSK waterfall, BPSK (its own sigma convention), a 4.0 dB
+floor-region sigma (with a weakened 2-iteration decoder so frame errors
+stay countable - the channel thresholds being validated depend only on
+sigma/scale, not on the decoder strength), and 16-QAM depth 2.
 
     python scripts/channel_parity.py            # -> docs/channel_parity.json
 """
@@ -47,159 +37,22 @@ FER_ROWS = [
     # consumes all of a rail's LLRs) + the interleave wrapper.
     ("16qam-d2", 4, 7.5, 6, 2),   # real-codeword waterfall
 ]
-HIST_ROWS = [("qpsk", 2, 3.6), ("qpsk", 2, 4.0), ("bpsk", 1, 4.0),
-             ("16qam", 4, 8.1)]
-HIST_ROUNDS = 30            # x BATCH x n_var draws ~ 1.1e9 per row
-
 
 def stream_id(*parts) -> int:
     """PYTHONHASHSEED-independent stream separator."""
     return zlib.crc32("/".join(str(p) for p in parts).encode()) & 0x7FFFFFFF
 
 
-def analytic_bin_probs(cfg, sigma):
-    """float64 P(q = m) for a transmitted 0-bit, m in [lo, hi]; the
-    truncating quantizer law q = clip(trunc(scale*(-a + s_rail*z)), lo,
-    hi) evaluated with math.erfc - independent of the float32 kernel
-    threshold path."""
-    from faid_tpu.ops.fixed_point import _QUANT_LIMITS
-    from faid_tpu.ops.pallas_channel import _AMPLITUDE
-
-    lo, hi = _QUANT_LIMITS[cfg.quant_bits]
-    a = _AMPLITUDE[cfg.mod_type]
-    srail = sigma / math.sqrt(2.0) if cfg.mod_type == 2 else sigma
-
-    def p_soft_ge(x):            # P(-a + srail*z >= x)
-        return 0.5 * math.erfc((x + a) / srail / math.sqrt(2.0))
-
-    probs = {}
-    for m in range(lo, hi + 1):
-        # q >= m  <=>  soft >= m (m >= 1);  q <= m  <=>  soft <= m (m <= -1)
-        if m > 0:
-            probs[m] = (p_soft_ge(m / cfg.scale)
-                        - (p_soft_ge((m + 1) / cfg.scale) if m < hi else 0.0))
-        elif m < 0:
-            lo_edge = 1.0 - p_soft_ge(m / cfg.scale)
-            hi_edge = 1.0 - p_soft_ge((m - 1) / cfg.scale) if m > lo else 0.0
-            probs[m] = lo_edge - hi_edge
-        else:
-            probs[m] = (p_soft_ge(-1.0 / cfg.scale)
-                        - p_soft_ge(1.0 / cfg.scale))
-    return probs
-
-
-def analytic_level_probs(cfg, sigma, level):
-    """float64 P(q_level = m) for the all-zero codeword (every rail
-    transmits sign 0, magnitude index 0) via the plan's static interval
-    expansion of the folded demap - independent of the float32 kernel
-    thresholds (math.erfc oracle)."""
-    from faid_tpu.ops import modem
-    from faid_tpu.ops.fixed_point import _QUANT_LIMITS
-    from faid_tpu.ops.pallas_channel import (_INF, _MAGNITUDES,
-                                             _expand_ge, _expand_le)
-
-    lo, hi = _QUANT_LIMITS[cfg.quant_bits]
-    assert -lo == hi, "asymmetric clip not folded here"
-    L = hi
-    folds = tuple(modem._FOLD[cfg.mod_type])
-    s = -float(_MAGNITUDES[cfg.mod_type][0])
-    srail = sigma / math.sqrt(2.0)
-
-    def p_gt(x):                 # P(y > x), y ~ N(s, srail)
-        return 0.5 * math.erfc((x - s) / srail / math.sqrt(2.0))
-
-    def p_event(intervals):
-        return sum((p_gt(a) if a != -_INF else 1.0)
-                   - (p_gt(b) if b != _INF else 0.0)
-                   for a, b in intervals)
-
-    p_ge = {k: p_event(_expand_ge(level, k / cfg.scale, folds))
-            for k in range(1, L + 1)}
-    p_le = {k: p_event(_expand_le(level, -k / cfg.scale, folds))
-            for k in range(1, L + 1)}
-    probs = {}
-    for v in range(1, L + 1):
-        probs[v] = p_ge[v] - (p_ge[v + 1] if v < L else 0.0)
-        probs[-v] = p_le[v] - (p_le[v + 1] if v < L else 0.0)
-    probs[0] = 1.0 - sum(probs.values())
-    return probs
-
-
-def run_hist_row(code, label, mod, snr):
-    import jax
-    import jax.numpy as jnp
-
-    from faid_tpu.config import SimConfig
-    from faid_tpu.ops.pallas_channel import build_fused_channel
-
-    cfg = SimConfig(mod_type=mod, batch_per_device=BATCH,
-                    channel_backend="fused")
-    chan = build_fused_channel(code, cfg)
-    sigma = jnp.float32(cfg.sigma_at(snr))
-    cw = jnp.zeros((BATCH, code.n_var), jnp.int8)
-    nlev = max(mod // 2, 1)
-
-    @jax.jit
-    def hist_step(key):
-        llr, _ = chan(cw, key, sigma)
-        llr32 = llr.astype(jnp.int32)
-        if nlev == 1:
-            return jnp.bincount(llr32.reshape(-1) + 8, length=16)[None]
-        # per-level histograms: position p's level is (p % mod) // 2
-        by_lev = llr32.reshape(BATCH, code.n_var // mod, nlev, 2)
-        return jnp.stack([
-            jnp.bincount(by_lev[:, :, lev, :].reshape(-1) + 8, length=16)
-            for lev in range(nlev)])
-
-    key = jax.random.key(stream_id("hist", label, snr))
-    counts = None
-    for r in range(HIST_ROUNDS):
-        h = jax.device_get(hist_step(jax.random.fold_in(key, r)))
-        counts = h if counts is None else counts + h
-
-    levels_out, max_z_all, ok = [], 0.0, True
-    for lev in range(nlev):
-        total = int(counts[lev].sum())
-        probs = (analytic_bin_probs(cfg, float(sigma)) if nlev == 1
-                 else analytic_level_probs(cfg, float(sigma), lev))
-        bins, max_z, chi2, ndof = [], 0.0, 0.0, 0
-        for m, p in sorted(probs.items()):
-            obs = int(counts[lev][m + 8])
-            exp = p * total
-            z = ((obs - exp) / math.sqrt(max(exp * (1 - p), 1e-30))
-                 if exp else 0.0)
-            ok_for_z = exp >= 25          # normal approx validity
-            if ok_for_z:
-                max_z = max(max_z, abs(z))
-                chi2 += z * z
-                ndof += 1
-            bins.append({"q": m, "observed": obs,
-                         "expected": round(exp, 3),
-                         "z": round(z, 2) if ok_for_z else None})
-        max_z_all = max(max_z_all, max_z)
-        ok &= max_z <= 5.0
-        levels_out.append({"level": lev, "draws": total, "bins": bins,
-                           "max_abs_z": round(max_z, 2),
-                           "chi2": round(chi2, 1), "ndof": ndof})
-    rec = {"label": label, "mod_type": mod, "snr_db": snr,
-           "levels": levels_out, "max_abs_z": round(max_z_all, 2),
-           "consistent": ok}
-    if nlev == 1:       # keep the flat round-2 shape for single-level
-        rec.update(levels_out[0])
-        rec.pop("level")
-    return rec
-
-
 def main():
-    from faid_tpu.utils.cache import enable_compilation_cache
+    from faid.utils.cache import enable_compilation_cache
     enable_compilation_cache()
 
     import jax
     import jax.numpy as jnp
 
-    from faid_tpu.code.qc_matrix import load_code
-    from faid_tpu.config import DecodeMethod, SimConfig
-    from faid_tpu.sim.pipeline import build_sim_loop
+    from faid.code.qc_matrix import load_code
+    from faid.config import DecodeMethod, SimConfig
+    from faid.sim.pipeline import build_sim_loop
 
     code = load_code("50gpon")
     points = []
@@ -256,23 +109,11 @@ def main():
         print(f"{label} {snr} dB: z_fer = {z:+.2f}  z_modber = {zm:+.2f} "
               f"({'ok' if ok else 'FAIL'})", flush=True)
 
-    hists = []
-    for label, mod, snr in HIST_ROWS:
-        h = run_hist_row(code, label, mod, snr)
-        all_ok &= h["consistent"]
-        hists.append(h)
-        draws = h.get("draws", sum(lv["draws"] for lv in h["levels"]))
-        print(f"hist {label} {snr} dB: {draws} draws, "
-              f"max|z|={h['max_abs_z']} "
-              f"({'ok' if h['consistent'] else 'FAIL'})", flush=True)
-
     out_path = REPO / "docs" / "channel_parity.json"
     out_path.write_text(json.dumps({
-        "config": f"method2 batch={BATCH} real-codeword; "
-                  f"hist rows all-zero cw",
+        "config": f"method2 batch={BATCH} real-codeword",
         "z_threshold": Z_THRESHOLD,
         "points": points,
-        "histograms": hists,
         "all_consistent": all_ok,
     }, indent=1))
     print(f"wrote {out_path}; all_consistent={all_ok}")

@@ -1,8 +1,8 @@
-"""Statistical FER comparison: compiled reference binary vs faid_tpu.
+"""Statistical FER comparison: compiled reference binary vs faid.
 
 For every row of docs/refcheck_fer.json (produced by run_fer.py from the
 reference's own demod -> quantize -> decode -> CalculateErrors chain),
-run the faid_tpu pipeline at the same operating point - same method,
+run the faid pipeline at the same operating point - same method,
 factors, SNR, QPSK all-zero codeword, 6 MP iterations, scale 13 - with
 ``stop_mode='group'`` (the reference's 32-frame SIMD-word early-stop
 granularity) until a comparable error count is reached, then compare the
@@ -15,13 +15,12 @@ parity on identical inputs is tests/test_refbinary.py).  |z| < 4 at
 every point = the two implementations sample the same FER within Monte
 Carlo resolution.
 
-Also re-runs each point with the default ``stop_mode='frame'`` so the
-group-vs-frame early-stop deviation (VERDICT round 1 item 7) is a
-measured delta, not an assertion.
+Also re-runs each point with ``stop_mode='frame'`` so the group-vs-frame
+early-stop deviation is a measured delta, not an assertion.
 
 Usage: python scripts/refcheck/compare_fer.py
          [--ref docs/refcheck_fer.json] [--out docs/refcheck_fer_compare]
-         [--backend auto] [--batch 512] [--max-frames 2000000]
+         [--batch 512] [--max-frames 2000000]
 """
 
 from __future__ import annotations
@@ -37,15 +36,15 @@ REPO = Path(__file__).resolve().parents[2]
 sys.path.insert(0, str(REPO))
 
 
-def run_point(code, rr, stop_mode, backend, batch,
+def run_point(code, rr, stop_mode, batch,
               target_errors, max_frames, seed):
     import zlib
 
     import jax
     import jax.numpy as jnp
 
-    from faid_tpu.config import DecodeMethod, SimConfig
-    from faid_tpu.sim.pipeline import build_sim_loop
+    from faid.config import DecodeMethod, SimConfig
+    from faid.sim.pipeline import build_sim_loop
 
     method = rr["_method"]
     cfg = SimConfig(decode_method=DecodeMethod(method), max_iteration=6,
@@ -55,10 +54,9 @@ def run_point(code, rr, stop_mode, backend, batch,
                     faid_lut=rr.get("lut", "faid3"),
                     batch_per_device=batch, seed=seed,
                     factor_1=rr["factor_1"], factor_2=rr["factor_2"],
-                    stop_mode=stop_mode,
-                    backend=backend, fake_encode=True)
+                    stop_mode=stop_mode, fake_encode=True)
     rounds = 4
-    loop = jax.jit(build_sim_loop(code, cfg, rounds, backend=cfg.backend))
+    loop = jax.jit(build_sim_loop(code, cfg, rounds))
     sigma = jnp.float32(cfg.sigma_at(rr["snr_db"]))
     # Deterministic per-point stream separation (a str hash would be
     # PYTHONHASHSEED-randomized across processes).
@@ -67,9 +65,7 @@ def run_point(code, rr, stop_mode, backend, batch,
         f"{cfg.mod_type}/{cfg.interleave_depth}/{cfg.scale}/"
         f"{cfg.faid_lut}/{stop_mode}".encode()) & 0x7FFFFFFF
     key = jax.random.fold_in(jax.random.key(seed), point_id)
-    # device_get, not block_until_ready: the latter can return before the
-    # fresh dispatch executed (docs/ROOFLINE.md), bleeding compile+warm-up
-    # into the timed region.
+    # Warm-up call: compile stays out of the timed region.
     jax.device_get(
         loop(jax.random.fold_in(key, 0xFFFFFFFF), sigma, jnp.int32(1 << 20)))
     c = {"test_frames": 0, "error_frames": 0, "error_bits": 0}
@@ -98,7 +94,6 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--ref", default=str(REPO / "docs/refcheck_fer.json"))
     ap.add_argument("--out", default=str(REPO / "docs/refcheck_fer_compare"))
-    ap.add_argument("--backend", default="auto")
     ap.add_argument("--batch", type=int, default=512)
     ap.add_argument("--max-frames", type=int, default=2_000_000)
     ap.add_argument("--seed", type=int, default=20260817)
@@ -112,14 +107,14 @@ def main():
     # frames, VERDICT r4 item 3.)
     ap.add_argument("--z-threshold", type=float, default=3.0)
     ap.add_argument("--target-cap", type=int, default=200,
-                    help="cap on the per-row faid_tpu error target "
+                    help="cap on the per-row faid error target "
                          "(target = max(50, min(cap, ref_error_frames)))")
     args = ap.parse_args()
 
-    from faid_tpu.utils.cache import enable_compilation_cache
+    from faid.utils.cache import enable_compilation_cache
     enable_compilation_cache()
-    from faid_tpu.code.qc_matrix import load_code
-    from faid_tpu.config import DecodeMethod
+    from faid.code.qc_matrix import load_code
+    from faid.config import DecodeMethod
 
     code = load_code("50gpon")
     ref_rows = json.loads(Path(args.ref).read_text())
@@ -169,7 +164,7 @@ def main():
                "ref_fer": rr["fer"], "ref_frames": rr["frames"],
                "ref_error_frames": rr["error_frames"]}
         for mode in ("group", "frame"):
-            c, dt = run_point(code, rr, mode, args.backend,
+            c, dt = run_point(code, rr, mode,
                               args.batch, target, args.max_frames,
                               args.seed)
             fer = c["error_frames"] / max(c["test_frames"], 1)
@@ -198,15 +193,15 @@ def main():
     Path(args.out + ".json").write_text(json.dumps(rec, indent=1) + "\n")
 
     lines = [
-        "# Reference-binary FER vs faid_tpu (statistical parity)\n\n",
+        "# Reference-binary FER vs faid (statistical parity)\n\n",
         "Same operating point per row (all-zero codeword, 6 MP "
         "iterations, 4-bit LLRs; mod/depth/scale/LUT-family per row); "
         "reference decodes via its own "
-        "compiled AVX code (scripts/refcheck/run_fer.py), faid_tpu via "
+        "compiled AVX code (scripts/refcheck/run_fer.py), faid via "
         "this framework with stop_mode='group' (the reference's 32-frame "
         "early-stop granularity). z = two-proportion z-test group-vs-ref; "
-        "'frame' columns show the TPU-default per-frame early stop for "
-        "the measured deviation (VERDICT r1 item 7).\n\n",
+        "'frame' columns show the per-frame early stop for "
+        "the measured deviation.\n\n",
         "| method | SNR | factors | mod | depth | scale | lut "
         "| ref FER (frames) | group FER (frames) "
         "| z | frame FER (frames) | consistent |\n",

@@ -3,7 +3,7 @@
 //
 // This is the independent oracle VERDICT.md round 1 asked for: it drives
 // the reference's own decoders/modem/quantizers with fully controlled
-// inputs so faid_tpu can be diffed bit-for-bit against the real thing
+// inputs so faid can be diffed bit-for-bit against the real thing
 // instead of against builder-written re-derivations.
 //
 // Modes (all buffers little-endian binary files):

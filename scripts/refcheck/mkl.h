@@ -7,8 +7,8 @@
  * RNG functions — is not linked; the harness generates noise with
  * <random>.
  */
-#ifndef FAID_TPU_REFCHECK_MKL_STUB_H
-#define FAID_TPU_REFCHECK_MKL_STUB_H
+#ifndef FAID_REFCHECK_MKL_STUB_H
+#define FAID_REFCHECK_MKL_STUB_H
 
 typedef struct {
     float real;

@@ -8,7 +8,7 @@ docs/refcheck_fer.json.
 
 The RNG is std::mt19937 (the documented deviation: statistical
 equivalence, not MKL stream parity); everything downstream of the noise
-draw is the reference's own code.  Compare with faid_tpu's measured FER
+draw is the reference's own code.  Compare with faid's measured FER
 using scripts/refcheck/compare_fer.py.
 
 The POINTS matrix covers every Profile.txt knob: all six methods (QPSK

@@ -8,9 +8,9 @@ from pathlib import Path
 import numpy as np
 import pytest
 
-from faid_tpu.code import encoder as enc
+from faid.code import encoder as enc
 
-_REF_CODEWORD = Path(__file__).parent.parent / "faid_tpu/code/data/50gpon_codeword.npz"
+_REF_CODEWORD = Path(__file__).parent.parent / "faid/code/data/50gpon_codeword.npz"
 
 
 def _reference_codeword() -> np.ndarray:
@@ -85,7 +85,7 @@ def test_reference_codeword_fixture_provenance():
     ref = Path("/root/reference/Codeword.h")
     if not ref.exists():
         pytest.skip("reference checkout not present")
-    from faid_tpu.code.extract import parse_reference_codeword
+    from faid.code.extract import parse_reference_codeword
     np.testing.assert_array_equal(parse_reference_codeword(ref),
                                   _reference_codeword())
 

@@ -20,12 +20,12 @@ _CHILD = """
 import jax
 jax.config.update("jax_platforms", "cpu")
 import jax.numpy as jnp, numpy as np
-from faid_tpu.code.qc_matrix import load_code
-from faid_tpu.config import DecodeMethod, DecoderConfig
-from faid_tpu.decoders.core import build_decoder
+from faid.code.qc_matrix import load_code
+from faid.config import DecodeMethod, DecoderConfig
+from faid.decoders.core import build_decoder
 code = load_code("50gpon")
 dcfg = DecoderConfig.for_method(DecodeMethod.FAID_DTBF, max_iter=2)
-dec = jax.jit(build_decoder(code, dcfg, backend="xla"))
+dec = jax.jit(build_decoder(code, dcfg))
 rng = np.random.default_rng(0)
 llr = jnp.asarray(rng.integers(-7, 8, (8, code.n_var)).astype(np.int8))
 jax.device_get(dec(llr)["mp_iters"])

@@ -2,7 +2,7 @@
 
 import math
 
-from faid_tpu.config import BFConfig, DecodeMethod, DecoderConfig, SimConfig
+from faid.config import BFConfig, DecodeMethod, DecoderConfig, SimConfig
 
 
 def test_sigma_formula_qpsk():
@@ -46,7 +46,7 @@ def test_configs_hashable():
 
 
 def test_lut_family_plumbing():
-    from faid_tpu.config import FaidLutFamily
+    from faid.config import FaidLutFamily
 
     cfg = SimConfig(decode_method=DecodeMethod.FAID_DTBF, faid_lut="faid32")
     assert cfg.decoder().lut_family == FaidLutFamily.FAID32

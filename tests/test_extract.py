@@ -12,7 +12,7 @@ REF = Path("/root/reference")
 
 @pytest.mark.skipif(not REF.exists(), reason="reference checkout absent")
 def test_extract_reproduces_committed_npz(tmp_path, code):
-    from faid_tpu.code import extract
+    from faid.code import extract
 
     edges = extract.parse_pos_noeuds(
         REF / "Constants" / "50GPON-dc-original" / "Constants_SSE.h")

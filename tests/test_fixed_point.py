@@ -4,7 +4,7 @@ the reference intrinsics (CLDPC.h:23-96, CLDPC.cpp:4385-4770)."""
 import numpy as np
 import jax.numpy as jnp
 
-from faid_tpu.ops import fixed_point as fp
+from faid.ops import fixed_point as fp
 
 
 def _adds_epi8_ref(a, b):

@@ -4,7 +4,7 @@ demap sign correctness at high SNR (reference CModulate.cpp)."""
 import numpy as np
 import jax.numpy as jnp
 
-from faid_tpu.ops import modem
+from faid.ops import modem
 
 
 def test_interleave_roundtrip(rng):

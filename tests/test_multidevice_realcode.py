@@ -1,22 +1,14 @@
-"""Multi-device execution of the REAL 50G-PON code and of the Pallas
-kernels (interpret mode) under shard_map on the 8-virtual-device CPU
-mesh - VERDICT r2 item 3: before this file, every multi-device artifact
-used the toy code on the XLA backend, and the hand-written ``vma=``
-out_shape workaround in ops/pallas_decoder.py / ops/pallas_channel.py
-was covered only by production TPU runs."""
-
-import dataclasses
+"""Multi-device execution of the REAL 50G-PON code under shard_map on
+the 8-virtual-device CPU mesh (the toy-code mesh tests live in
+tests/test_pipeline.py and tests/test_mesh_equivalence.py)."""
 
 import jax
 import jax.numpy as jnp
 import numpy as np
-from jax.sharding import PartitionSpec as P
 
-from faid_tpu.code.toy import toy_code
-from faid_tpu.config import DecodeMethod, DecoderConfig, SimConfig
-from faid_tpu.decoders.core import build_decoder
-from faid_tpu.parallel import mesh as mesh_mod
-from faid_tpu.sim.pipeline import build_sim_step
+from faid.config import DecodeMethod, SimConfig
+from faid.parallel import mesh as mesh_mod
+from faid.sim.pipeline import build_sim_step
 
 
 def test_sharded_real_code_matches_manual_reduction(code):
@@ -27,14 +19,14 @@ def test_sharded_real_code_matches_manual_reduction(code):
     assert mesh.size == 8
     cfg = SimConfig(decode_method=DecodeMethod.OMS, max_iteration=2,
                     mod_type=2, batch_per_device=4, seed=7,
-                    fake_encode=True, backend="xla")
+                    fake_encode=True)
     sigma = jnp.float32(cfg.sigma_at(3.6))
     key = jax.random.key(cfg.seed)
 
     sharded = mesh_mod.build_sharded_sim_step(code, cfg, mesh)
     got = jax.device_get(sharded(key, sigma))
 
-    step = jax.jit(build_sim_step(code, cfg, backend="xla"))
+    step = jax.jit(build_sim_step(code, cfg))
     want = None
     for d in range(mesh.size):
         out = jax.device_get(step(jax.random.fold_in(key, d), sigma))
@@ -44,131 +36,3 @@ def test_sharded_real_code_matches_manual_reduction(code):
     for k in want:
         np.testing.assert_array_equal(np.asarray(got[k]),
                                       np.asarray(want[k]), err_msg=k)
-
-
-def test_pallas_decoder_vma_under_shard_map(rng):
-    """The fused MP+BF kernel (interpret mode) inside shard_map: covers
-    the vma= out_shape derivation (ops/pallas_decoder.py) that
-    previously only production TPU runs exercised.  Per-device results
-    must equal the unsharded decode of the same batch.
-
-    Uses the Mosaic-TPU interpreter: the HLO interpreter discharges the
-    kernel's scratch refs into a scan whose vma propagation chokes on
-    the scalar-gated iteration flag (jax quirk); Mosaic-interpret
-    handles it and is also what the sim-kernel shard_map test uses."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    tcode = toy_code()
-    dcfg = dataclasses.replace(
-        DecoderConfig.for_method(DecodeMethod.FAID_DTBF, max_iter=3),
-        bf=dataclasses.replace(
-            DecoderConfig.for_method(DecodeMethod.FAID_DTBF).bf,
-            max_iter=2))
-    dec = build_decoder(tcode, dcfg, backend="pallas",
-                        interpret=pltpu.InterpretParams())
-    mesh = mesh_mod.make_mesh()
-    llr = jnp.asarray(rng.integers(-7, 8, size=(8 * 32, tcode.n_var),
-                                   dtype=np.int8))
-
-    shmap = jax.jit(jax.shard_map(
-        dec, mesh=mesh, in_specs=P("batch"),
-        out_specs={"hard": P("batch"), "mp_iters": P("batch"),
-                   "bf_rounds": P("batch")}))
-    got = jax.device_get(shmap(llr))
-    want = jax.device_get(jax.jit(dec)(llr))
-    for k in want:
-        np.testing.assert_array_equal(np.asarray(got[k]),
-                                      np.asarray(want[k]), err_msg=k)
-
-
-def test_fused_channel_vma_under_shard_map():
-    """The fused quantile-channel kernel inside a vma-checked shard_map,
-    via the Mosaic-TPU interpreter (the hlo interpreter cannot emulate
-    pltpu.prng_seed at all): covers the vma= out_shape workaround in
-    ops/pallas_channel.py without hardware.
-
-    Interpreter caveat: pltpu.prng_random_bits is a stub there (constant
-    bits, key-insensitive), so random-stream assertions are meaningless
-    on CPU - the kernel's output LAW is validated on real TPU by
-    scripts/channel_parity.py, and the staircase math by the portable
-    threefry path (tests/test_pallas_channel.py).  What this test pins:
-    the kernel traces, shards, and runs under shard_map with vma
-    checking ON; per-device results equal single-device calls; and the
-    codeword mask path is live."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    from faid_tpu.ops.pallas_channel import build_fused_channel
-
-    tcode = toy_code(z=32)                     # n_var 384 = 3 * 128 lanes
-    cfg = SimConfig(mod_type=2, batch_per_device=64, quant_bits=4,
-                    channel_backend="fused")
-    chan = build_fused_channel(tcode, cfg,
-                               interpret=pltpu.InterpretParams())
-    mesh = mesh_mod.make_mesh()
-    sigma = jnp.float32(cfg.sigma_at(3.6))
-    cw = jnp.zeros((8 * 64, tcode.n_var), jnp.int8)
-    cw = cw.at[:, ::2].set(1)                  # exercise the mask XOR
-    key = jax.random.key(3)
-
-    def body(cw_shard, key, sigma):
-        key = jax.random.fold_in(key, jax.lax.axis_index("batch"))
-        return chan(cw_shard, key, sigma)
-
-    shmap = jax.jit(jax.shard_map(
-        body, mesh=mesh, in_specs=(P("batch"), P(), P()),
-        out_specs=(P("batch"), P("batch"))))
-    llr_s, err_s = jax.device_get(shmap(cw, key, sigma))
-    assert llr_s.shape == err_s.shape == (8 * 64, tcode.n_var)
-
-    one = jax.jit(chan)
-    for d in range(0, mesh.size, 7):           # first + last device
-        llr_d, err_d = jax.device_get(
-            one(cw[d * 64:(d + 1) * 64], jax.random.fold_in(key, d), sigma))
-        np.testing.assert_array_equal(llr_s[d * 64:(d + 1) * 64], llr_d)
-        np.testing.assert_array_equal(err_s[d * 64:(d + 1) * 64], err_d)
-    # The transmitted-bit mask must steer the staircase (0-bits and
-    # 1-bits see mirrored grids, so identical constant bits cannot give
-    # identical LLR columns).
-    assert not np.array_equal(llr_s[:, ::2], llr_s[:, 1::2])
-
-
-def test_fused_sim_vma_under_shard_map():
-    """The fully-fused sim kernel (channel + decode + stats in one
-    pallas_call, ops/pallas_decoder.build_fused_sim) inside a
-    vma-checked shard_map via the Mosaic-TPU interpreter: per-device
-    counters must equal single-device calls with the same folded keys.
-    This is the production multi-chip path of bench.py/the CLI."""
-    from faid_tpu.ops import pallas_decoder as pk
-
-    tcode = toy_code()
-    cfg = SimConfig(decode_method=DecodeMethod.FAID_DTBF, mod_type=2,
-                    batch_per_device=32, fake_encode=True,
-                    channel_backend="fused", stop_mode="group",
-                    backend="pallas", seed=3)
-    sim = pk.build_fused_sim(tcode, cfg, interpret=True)
-    mesh = mesh_mod.make_mesh()
-    sigma = jnp.float32(cfg.sigma_at(3.6))
-    key = jax.random.key(cfg.seed)
-
-    def body(key, sigma):
-        key = jax.random.fold_in(key, jax.lax.axis_index("batch"))
-        out = sim(None, key, sigma)
-        return jax.tree.map(
-            lambda x: jax.lax.psum(x.sum(), "batch"), out)
-
-    shmap = jax.jit(jax.shard_map(
-        body, mesh=mesh, in_specs=(P(), P()),
-        out_specs={k: P() for k in ("err_bits", "mp_iters", "bf_rounds",
-                                    "mod_error_bits",
-                                    "mod_error_symbols")}))
-    got = jax.device_get(shmap(key, sigma))
-
-    want = {k: 0 for k in got}
-    one = jax.jit(sim, static_argnums=0)
-    for d in range(mesh.size):
-        out = jax.device_get(
-            one(None, jax.random.fold_in(key, d), sigma))
-        for k in want:
-            want[k] += int(np.asarray(out[k]).sum())
-    for k in want:
-        assert int(got[k]) == want[k], (k, int(got[k]), want[k])

@@ -3,10 +3,10 @@
 import numpy as np
 import pytest
 
-from faid_tpu.code import encoder as enc
-from faid_tpu.code.toy import toy_code
+from faid.code import encoder as enc
+from faid.code.toy import toy_code
 
-native = pytest.importorskip("faid_tpu.utils.native")
+native = pytest.importorskip("faid.utils.native")
 
 
 @pytest.fixture(scope="module")

@@ -8,12 +8,12 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from faid_tpu.code.toy import toy_code
-from faid_tpu.config import DecodeMethod, DecoderConfig
-from faid_tpu.decoders.core import build_decoder
-from faid_tpu.golden.model import decode_golden
+from faid.code.toy import toy_code
+from faid.config import DecodeMethod, DecoderConfig
+from faid.decoders.core import build_decoder
+from faid.golden.model import decode_golden
 
-native = pytest.importorskip("faid_tpu.utils.native")
+native = pytest.importorskip("faid.utils.native")
 
 # Method-0 rows deliberately pin the degenerate 1/6-factor NMS datapath;
 # the footgun warning is expected there.

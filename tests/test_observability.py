@@ -4,10 +4,10 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from faid_tpu.code.toy import toy_code
-from faid_tpu.config import DecodeMethod, SimConfig
-from faid_tpu.sim.pipeline import build_debug_step, build_sim_step
-from faid_tpu.sim.runner import MonteCarloRunner
+from faid.code.toy import toy_code
+from faid.config import DecodeMethod, SimConfig
+from faid.sim.pipeline import build_debug_step, build_sim_step
+from faid.sim.runner import MonteCarloRunner
 
 
 def cfg_at(**kw):
@@ -103,7 +103,7 @@ def test_errorfloat_dump(tmp_path):
     # float lines carry one float per erroneous position, and each float
     # quantizes to the dumped 4-bit LLR
     import numpy as np
-    from faid_tpu.ops.fixed_point import quantize_llr
+    from faid.ops.fixed_point import quantize_llr
     for fl, ql in zip(flt, llr):
         fvals = np.array([float(x) for x in fl.split(" : ")[1].split()],
                          np.float32)
@@ -142,14 +142,39 @@ def test_checkpoint_config_fingerprint(tmp_path):
                           max_rounds_per_snr=2)
     assert r3._state["round"] > 0
 
-    # result-neutral changes (stopping rule, bit-exact backend) must NOT
-    # invalidate the checkpoint: deepening a sweep or switching backend
-    # keeps accumulated statistics.
-    cfg4 = dataclasses.replace(cfg, min_frame_errors=999, backend="xla",
-                               rounds_per_sync=3)
+    # result-neutral changes (stopping rule, sync cadence) must NOT
+    # invalidate the checkpoint: deepening a sweep keeps accumulated
+    # statistics.
+    cfg4 = dataclasses.replace(cfg, min_frame_errors=999, rounds_per_sync=3)
     r4 = MonteCarloRunner(cfg4, code=code, checkpoint_path=ck,
                           max_rounds_per_snr=2)
     assert r4._state["round"] > 0
+
+
+def test_checkpoint_from_before_backend_removal_resumes(tmp_path):
+    """SimConfig once had a result-neutral ``backend`` field that the
+    fingerprint skipped; a checkpoint written then (fingerprint recorded
+    from that code) must still resume."""
+    import json
+
+    from faid.sim.runner import COUNTER_KEYS, config_fingerprint
+
+    cfg = cfg_at(snr_start=-3.0, snr_pass=1.0, snr_end=-1.0, min_frames=8)
+    old_fp = "158b177729b24267"
+    assert config_fingerprint(cfg) == old_fp
+    counters = {k: 0 for k in COUNTER_KEYS}
+    counters.update(test_frames=16, mp_hist=[16, 0, 0], bf_hist=[16] + [0] * 10)
+    ck = tmp_path / "checkpoint.json"
+    ck.write_text(json.dumps({
+        "seed": cfg.seed, "config_fingerprint": old_fp,
+        "state": {"snr_idx": 1, "round": 4, "counters": counters,
+                  "err_chunks": [], "done": []},
+        "results": [{"snr_db": -3.0, "counters": counters, "seconds": 1.0,
+                     "err_chunks": []}]}))
+    r = MonteCarloRunner(cfg, code=toy_code(), checkpoint_path=ck,
+                         max_rounds_per_snr=2)
+    assert r._state["snr_idx"] == 1 and r._state["round"] == 4
+    assert r.results[0].counters["test_frames"] == 16
 
 
 def test_sweep_economics_budget(tmp_path):

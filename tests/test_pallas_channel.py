@@ -1,15 +1,14 @@
-"""Fused quantile-sampling channel (ops/pallas_channel.py).
+"""Quantile-sampling channel (ops/quantile_channel.py).
 
-The kernel itself needs TPU hardware PRNG; these tests validate the
-platform-independent parts that carry all the correctness weight:
+These tests validate the parts that carry all the correctness weight:
 
   * the quantile thresholds against float64 erf,
   * the staircase semantics against the float chain
     (modulate -> AWGN -> demap -> quantize) it replaces,
   * the bit-1 mirror identity (exact integer property),
   * the output *distribution* against the analytic law,
-  * the full sim-step wiring (jnp threefry path on CPU) against the
-    float-channel sim step at the statistics level.
+  * the full sim-step wiring against the float-channel sim step at the
+    statistics level.
 """
 
 from __future__ import annotations
@@ -21,9 +20,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from faid_tpu.config import DecodeMethod, SimConfig
-from faid_tpu.ops import fixed_point as fp
-from faid_tpu.ops import pallas_channel as pc
+from faid.config import DecodeMethod, SimConfig
+from faid.ops import fixed_point as fp
+from faid.ops import quantile_channel as pc
 
 
 def _f64_thresholds(cfg, sigma):
@@ -167,7 +166,7 @@ def test_staircase_distribution(rng):
 def test_sim_step_fused_vs_xla_statistics(code):
     """Full wiring: the fused-channel sim step must reproduce the float
     channel's pre-decoder BER and decoder behavior statistically."""
-    from faid_tpu.sim.pipeline import build_sim_step
+    from faid.sim.pipeline import build_sim_step
 
     base = dict(decode_method=DecodeMethod.FAID_DTBF, max_iteration=6,
                 mod_type=2, batch_per_device=512, fake_encode=True,
@@ -175,8 +174,8 @@ def test_sim_step_fused_vs_xla_statistics(code):
     cfg_x = SimConfig(**base, channel_backend="xla")
     cfg_f = SimConfig(**base, channel_backend="fused")
     sigma = jnp.float32(cfg_x.sigma_at(3.3))   # waterfall: plenty of errors
-    sx = jax.jit(build_sim_step(code, cfg_x, backend="xla"))
-    sf = jax.jit(build_sim_step(code, cfg_f, backend="xla"))
+    sx = jax.jit(build_sim_step(code, cfg_x))
+    sf = jax.jit(build_sim_step(code, cfg_f))
     ox = jax.device_get(sx(jax.random.key(7), sigma))
     of = jax.device_get(sf(jax.random.key(7), sigma))
 
@@ -191,74 +190,38 @@ def test_sim_step_fused_vs_xla_statistics(code):
     assert abs(ix_ - if_) < 0.2, (ix_, if_)
 
 
-@pytest.mark.parametrize("mod_type", [1, 2])
-def test_mod_stats_tile_sweep_matches_reduce(code, mod_type, rng):
-    """The in-kernel per-tile ModCalErr reduction (mod_stats_tile,
-    summed over the column-tile sweep exactly as _kernel_stats
-    accumulates it) must equal reduce_mod_stats of the full error map -
-    including the info/parity boundary inside a tile and the QPSK pair
-    wrap at tile edges.  Random maps; jnp.roll injected for the lane
-    roll (the kernel uses pltpu.roll with the same out[p] = x[p-d]
-    semantics, pinned by test_qam_lane_layout_matches_rail_layout)."""
-    n, n_info = code.n_var, code.n_info
-    nt = pc._pick_nt(n)
-    batch = 16
-    err_map = (rng.random((batch, n)) < 0.07).astype(np.int8)
-    bits = jnp.zeros((batch, 1), jnp.int32)
-    syms = jnp.zeros((batch, 1), jnp.int32)
-    for j in range(n // nt):
-        b, s = pc.mod_stats_tile(
-            jnp.asarray(err_map[:, j * nt:(j + 1) * nt]), jnp.int32(j),
-            n_info=n_info, mod_type=mod_type, nt=nt,
-            roll=lambda x, d: jnp.roll(x, d, axis=1))
-        bits, syms = bits + b, syms + s
-    rb, rs = pc.reduce_mod_stats(jnp.asarray(err_map), n_info, mod_type)
-    np.testing.assert_array_equal(np.asarray(bits)[:, 0], np.asarray(rb))
-    np.testing.assert_array_equal(np.asarray(syms)[:, 0], np.asarray(rs))
-    assert int(np.asarray(bits).sum()) > 0
-
-
-@pytest.mark.parametrize("mod_type", [1, 2])
-def test_stats_kernel_matches_map_kernel(code, mod_type):
-    """Wiring of _kernel_stats vs the error-map kernel through the
-    Mosaic-TPU interpreter (the hlo interpreter cannot emulate
-    pltpu.prng_seed): identical (stubbed) PRNG draws -> identical llr,
-    and the accumulated [B] counters equal reduce_mod_stats of the
-    map.  The PRNG stub is key-insensitive on CPU, so the random STREAM
-    is pinned on hardware instead (scripts/channel_parity.py); this
-    test pins the grid accumulation + reshape plumbing."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    cfg = SimConfig(mod_type=mod_type, quant_bits=4, batch_per_device=64,
-                    seed=0)
-    interp = pltpu.InterpretParams()
-    ch_map = pc.build_fused_channel(code, cfg, interpret=interp)
-    ch_st = pc.build_fused_channel_stats(code, cfg, interpret=interp)
-    k_cw, key = jax.random.split(jax.random.key(5))
-    cw = jax.random.bernoulli(k_cw, 0.5, (64, code.n_var)).astype(jnp.int8)
-    sigma = jnp.float32(cfg.sigma_at(3.4))
-    llr_m, err_map = jax.jit(ch_map)(cw, key, sigma)
-    llr_s, bits, syms = jax.jit(ch_st)(cw, key, sigma)
-    np.testing.assert_array_equal(np.asarray(llr_m), np.asarray(llr_s))
-    rb, rs = pc.reduce_mod_stats(err_map, code.n_info, mod_type)
-    np.testing.assert_array_equal(np.asarray(bits), np.asarray(rb))
-    np.testing.assert_array_equal(np.asarray(syms), np.asarray(rs))
-
-
 def test_supports_gates(code):
-    assert pc.supports(code, SimConfig(mod_type=2, quant_bits=4))
-    assert pc.supports(code, SimConfig(mod_type=1, quant_bits=4))
-    assert pc.supports(code, SimConfig(mod_type=4, quant_bits=4))
-    assert pc.supports(code, SimConfig(mod_type=6, quant_bits=4))
-    assert pc.supports(code, SimConfig(mod_type=8, quant_bits=4))
+    assert pc.supports(SimConfig(mod_type=2, quant_bits=4))
+    assert pc.supports(SimConfig(mod_type=1, quant_bits=4))
+    assert pc.supports(SimConfig(mod_type=4, quant_bits=4))
+    assert pc.supports(SimConfig(mod_type=6, quant_bits=4))
+    assert pc.supports(SimConfig(mod_type=8, quant_bits=4))
     # 6-bit round-half-even: covered since round 5 (half-integer steps).
-    assert pc.supports(code, SimConfig(mod_type=2, quant_bits=6))
-    assert not pc.supports(code, SimConfig(mod_type=2, quant_bits=1))
+    assert pc.supports(SimConfig(mod_type=2, quant_bits=6))
+    assert not pc.supports(SimConfig(mod_type=2, quant_bits=1))
     with pytest.raises(ValueError):
         pc.build_fused_channel(code, SimConfig(mod_type=2, quant_bits=1))
 
 
 # --------------------------- QAM (shared-draw plan) ---------------------
+
+
+@pytest.mark.parametrize("mod_type", [1, 2, 4, 6, 8])
+def test_reduce_mod_stats_matches_numpy(code, mod_type, rng):
+    """Per-frame ModCalErr counts vs a numpy loop: info bits only (the
+    parity tail is ignored) and a symbol = mod_type consecutive info
+    bits, the last one zero-padded when mod_type does not divide
+    n_info."""
+    n, n_info = code.n_var, code.n_info
+    err_map = (rng.random((8, n)) < 0.07).astype(np.int8)
+    bits, syms = pc.reduce_mod_stats(jnp.asarray(err_map), n_info, mod_type)
+    info = err_map[:, :n_info].astype(bool)
+    want_syms = [sum(info[f, i:i + mod_type].any()
+                     for i in range(0, n_info, mod_type))
+                 for f in range(info.shape[0])]
+    np.testing.assert_array_equal(np.asarray(bits), info.sum(axis=1))
+    np.testing.assert_array_equal(np.asarray(syms), want_syms)
+    assert int(np.asarray(bits).sum()) > 0
 
 
 def test_qam_plan_matches_legacy_qpsk(rng):
@@ -286,54 +249,6 @@ def test_qam_plan_matches_legacy_qpsk(rng):
                                   np.asarray(hards[0]).astype(np.int8))
 
 
-@pytest.mark.parametrize("mod_type", [4, 6, 8])
-def test_qam_lane_layout_matches_rail_layout(mod_type, rng):
-    """The kernel's lane-roll gather (qam_lanes with jnp.roll standing in
-    for pltpu.roll) must equal the rail-reshape evaluation pathwise on
-    identical per-rail draws - full coverage of the roll/mask wiring
-    without hardware."""
-    cfg = SimConfig(mod_type=mod_type, quant_bits=4)
-    h = mod_type // 2
-    nmag = 2 ** (h - 1)
-    bt, nt = 8, 128 * (3 if mod_type == 6 else 1)
-    nsym = nt // mod_type
-    sigma = jnp.float32(0.4)
-    params = jax.jit(lambda s: pc._plan_threshold_ints(cfg, s))(sigma)
-    nparam = params.shape[1]
-    rows = [[params[m, j] for j in range(nparam)] for m in range(nmag)]
-
-    cw = rng.integers(0, 2, (bt, nt)).astype(np.int32)
-    ix_rail = rng.integers(-2**31, 2**31, (bt, nsym, 2),
-                           np.int64).astype(np.int32)
-    # Lane view: the rail draw lives at the rail-base (level-0) lanes;
-    # other lanes carry junk that the gather must ignore.
-    ix_lane = rng.integers(-2**31, 2**31, (bt, nt),
-                           np.int64).astype(np.int32)
-    ix_lane = ix_lane.reshape(bt, nsym, h, 2)
-    ix_lane[:, :, 0, :] = ix_rail
-    ix_lane = ix_lane.reshape(bt, nt)
-
-    def roll(x, d):
-        return jnp.roll(x, d, axis=1)
-
-    q_lane, err_lane = pc.qam_lanes(
-        jnp.asarray(cw), jnp.asarray(ix_lane), rows, mod_type=mod_type,
-        quant_bits=4, scale=cfg.scale, roll=roll)
-
-    # Rail view (the jnp backend's layout).
-    grp = jnp.asarray(cw.reshape(bt, nsym, h, 2))
-    qs, hards = pc.staircase_qam(
-        jnp.asarray(ix_rail), grp[:, :, 0, :],
-        [grp[:, :, i, :] for i in range(1, h)], rows,
-        mod_type=mod_type, quant_bits=4, scale=cfg.scale)
-    errs = [hards[0]] + [hards[i] ^ grp[:, :, i, :] for i in range(1, h)]
-    q_rail = np.stack([np.asarray(q) for q in qs], 2).reshape(bt, nt)
-    err_rail = np.stack([np.asarray(e) for e in errs], 2).reshape(bt, nt)
-
-    np.testing.assert_array_equal(np.asarray(q_lane), q_rail)
-    np.testing.assert_array_equal(np.asarray(err_lane), err_rail)
-
-
 @pytest.mark.parametrize("quant_bits", [4, 6])
 def test_qam_joint_law_16qam(rng, quant_bits):
     """JOINT law of one rail's (q0, q1) vs the float chain: the two LLRs
@@ -342,7 +257,7 @@ def test_qam_joint_law_16qam(rng, quant_bits):
     quant_bits=6 covers the round-half-even half-integer plan offsets."""
     import math
 
-    from faid_tpu.ops import modem
+    from faid.ops import modem
     cfg = SimConfig(mod_type=4, quant_bits=quant_bits)
     sigma = 0.35
     srail = sigma / math.sqrt(2.0)
@@ -388,7 +303,7 @@ def test_sim_step_fused_vs_xla_statistics_16qam(code):
     MP iterations), 16-QAM depth 2."""
     import math
 
-    from faid_tpu.sim.pipeline import build_sim_step
+    from faid.sim.pipeline import build_sim_step
 
     base = dict(decode_method=DecodeMethod.FAID_DTBF, max_iteration=6,
                 mod_type=4, interleave_depth=2, batch_per_device=256,
@@ -396,8 +311,8 @@ def test_sim_step_fused_vs_xla_statistics_16qam(code):
     cfg_x = SimConfig(**base, channel_backend="xla")
     cfg_f = SimConfig(**base, channel_backend="fused")
     sigma = jnp.float32(cfg_x.sigma_at(7.6))   # 16-QAM waterfall
-    sx = jax.jit(build_sim_step(code, cfg_x, backend="xla"))
-    sf = jax.jit(build_sim_step(code, cfg_f, backend="xla"))
+    sx = jax.jit(build_sim_step(code, cfg_x))
+    sf = jax.jit(build_sim_step(code, cfg_f))
     ox = jax.device_get(sx(jax.random.key(11), sigma))
     of = jax.device_get(sf(jax.random.key(11), sigma))
 

@@ -8,11 +8,11 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from faid_tpu.code.toy import toy_code
-from faid_tpu.config import DecodeMethod, SimConfig
-from faid_tpu.parallel import mesh as mesh_mod
-from faid_tpu.sim.pipeline import build_sim_step
-from faid_tpu.sim.runner import MonteCarloRunner, snr_points
+from faid.code.toy import toy_code
+from faid.config import DecodeMethod, SimConfig
+from faid.parallel import mesh as mesh_mod
+from faid.sim.pipeline import build_sim_step
+from faid.sim.runner import MonteCarloRunner, snr_points
 
 
 @pytest.fixture(scope="module")

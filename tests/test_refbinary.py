@@ -1,9 +1,9 @@
 """External validation against the compiled *reference binary*.
 
 These tests build /root/reference's own CLDPC/CModulate sources in place
-(scripts/refcheck/build.sh, MKL type-stubbed) and diff faid_tpu against
+(scripts/refcheck/build.sh, MKL type-stubbed) and diff faid against
 them on identical inputs — the independent oracle that converts the
-numpy/C++/XLA/Pallas lockstep chain from self-consistent to externally
+numpy/C++/XLA lockstep chain from self-consistent to externally
 proven (VERDICT round 1, item 1).
 
 Skipped automatically when the harness cannot be built (needs g++ and an
@@ -22,9 +22,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from faid_tpu.config import DecodeMethod, DecoderConfig
-from faid_tpu.decoders.core import build_decoder
-from faid_tpu.ops import fixed_point, modem
+from faid.config import DecodeMethod, DecoderConfig
+from faid.decoders.core import build_decoder
+from faid.ops import fixed_point, modem
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 HARNESS = REPO / ".refbuild" / "refharness"
@@ -129,7 +129,7 @@ def test_modem_parity(harness, workdir, mod_type, depth):
 ])
 def test_decode_parity(harness, workdir, code, method, f1, f2):
     """One 32-frame word through the reference decoder entry point vs
-    faid_tpu in stop_mode='group' (the reference's SIMD-word early-stop
+    faid in stop_mode='group' (the reference's SIMD-word early-stop
     granularity).  Full six-method sweep: scripts/refcheck/run_parity.py."""
     write_profile(workdir, int(method), f1, f2)
     rng = np.random.default_rng(int(method) + 17)
@@ -145,7 +145,7 @@ def test_decode_parity(harness, workdir, code, method, f1, f2):
 
     dcfg = DecoderConfig.for_method(method, max_iter=6, factor_1=f1,
                                     factor_2=f2, stop_mode="group")
-    decode = build_decoder(code, dcfg, backend="xla")
+    decode = build_decoder(code, dcfg)
     got = np.asarray(decode(jnp.asarray(llr))["hard"], dtype=np.int8)
     np.testing.assert_array_equal(ref, got)
 
@@ -179,12 +179,12 @@ def test_itercount_golden(harness, workdir, code):
 
     dcfg = DecoderConfig.for_method(method, max_iter=6, factor_1=f1,
                                     factor_2=f2, stop_mode="group")
-    decode = build_decoder(code, dcfg, backend="xla")
+    decode = build_decoder(code, dcfg)
     used = np.asarray(decode(jnp.asarray(llr))["bf_rounds"])
     bf_cap = dcfg.bf.max_iter
     hist = np.bincount(used, minlength=bf_cap + 1)
     assert len(set(used.tolist())) > 1, "degenerate fixture: tune sigma"
 
-    from faid_tpu.sim.runner import itercount_ref_lines
+    from faid.sim.runner import itercount_ref_lines
     mine = "".join(itercount_ref_lines(hist, bf_cap, word_exact=True))
     assert mine == ref_out.stdout

@@ -1,113 +1,11 @@
-"""Stats-fused decoder (in-kernel error reduction) vs the hard-output
-path: identical counters on every method, both stop modes, fake and real
-reference words (interpret mode on CPU; the compiled path is exercised on
-TPU by bench/e2e runs)."""
-
-import dataclasses
+"""Iteration-histogram counter of the sim step."""
 
 import numpy as np
-import jax
 import jax.numpy as jnp
-import pytest
-
-from faid_tpu.code.toy import toy_code
-from faid_tpu.config import DecodeMethod, DecoderConfig
-from faid_tpu.decoders.core import build_decoder, build_stats_decoder
-
-METHODS = list(DecodeMethod)
-
-
-def small_cfg(method, stop_mode="frame", max_iter=4, bf_iter=3):
-    kw = dict(factor_1=26, factor_2=32) if method == DecodeMethod.NMS else {}
-    dcfg = DecoderConfig.for_method(method, max_iter=max_iter,
-                                    stop_mode=stop_mode, **kw)
-    if dcfg.bf.kind != "none":
-        dcfg = dataclasses.replace(
-            dcfg, bf=dataclasses.replace(dcfg.bf, max_iter=bf_iter))
-    return dcfg
-
-
-def reference_counts(code, dcfg, llr, ref_bits):
-    out = jax.jit(build_decoder(code, dcfg, backend="xla"))(jnp.asarray(llr))
-    hard = np.asarray(out["hard"])[:, :code.n_info]
-    exp = (np.zeros_like(hard) if ref_bits is None
-           else np.asarray(ref_bits, bool))
-    return {
-        "err_bits": (hard ^ exp).sum(axis=1).astype(np.int32),
-        "mp_iters": np.asarray(out["mp_iters"]),
-        "bf_rounds": np.asarray(out["bf_rounds"]),
-    }
-
-
-@pytest.mark.parametrize("stop_mode", ["frame", "group"])
-@pytest.mark.parametrize("method", METHODS)
-def test_stats_kernel_matches_hard_path(rng, method, stop_mode):
-    code = toy_code()
-    dcfg = small_cfg(method, stop_mode=stop_mode)
-    llr = rng.integers(-7, 8, size=(64, code.n_var)).astype(np.int8)
-    llr[:32] = np.minimum(llr[:32], -1)   # two groups, different exits
-    want = reference_counts(code, dcfg, llr, None)
-    st = jax.jit(build_stats_decoder(code, dcfg, backend="pallas",
-                                     interpret=True))
-    got = jax.tree.map(np.asarray, st(jnp.asarray(llr)))
-    np.testing.assert_array_equal(got["err_bits"], want["err_bits"],
-                                  err_msg=method.name)
-    np.testing.assert_array_equal(got["mp_iters"], want["mp_iters"])
-    np.testing.assert_array_equal(got["bf_rounds"], want["bf_rounds"])
-
-
-@pytest.mark.parametrize("method", METHODS)
-def test_stats_kernel_full_range_llrs(rng, method):
-    """Pin the clip-elision proof (_msg_bound/sat8) at the extremes:
-    full-range int8 channel LLRs (|llr| up to 127 at iteration 0, en at
-    the +/-31 rails) must keep pallas == xla bit-for-bit — if the elided
-    int8 saturation could ever fire, this is where it would."""
-    code = toy_code()
-    dcfg = small_cfg(method)
-    llr = rng.integers(-128, 128, size=(32, code.n_var)).astype(np.int8)
-    want = reference_counts(code, dcfg, llr, None)
-    st = jax.jit(build_stats_decoder(code, dcfg, backend="pallas",
-                                     interpret=True))
-    got = jax.tree.map(np.asarray, st(jnp.asarray(llr)))
-    np.testing.assert_array_equal(got["err_bits"], want["err_bits"],
-                                  err_msg=method.name)
-    np.testing.assert_array_equal(got["mp_iters"], want["mp_iters"])
-    np.testing.assert_array_equal(got["bf_rounds"], want["bf_rounds"])
-
-
-def test_stats_kernel_real_reference_word(rng):
-    """ref_bits path: error counts measured against a nonzero expected
-    info word must match the XLA XOR+reduce."""
-    code = toy_code()
-    dcfg = small_cfg(DecodeMethod.FAID_DTBF, stop_mode="group")
-    llr = rng.integers(-7, 8, size=(32, code.n_var)).astype(np.int8)
-    ref = rng.integers(0, 2, size=(32, code.n_info)).astype(np.int8)
-    want = reference_counts(code, dcfg, llr, ref)
-    st = jax.jit(build_stats_decoder(code, dcfg, backend="pallas",
-                                     interpret=True))
-    got = jax.tree.map(np.asarray, st(jnp.asarray(llr), jnp.asarray(ref)))
-    np.testing.assert_array_equal(got["err_bits"], want["err_bits"])
-    np.testing.assert_array_equal(got["mp_iters"], want["mp_iters"])
-    np.testing.assert_array_equal(got["bf_rounds"], want["bf_rounds"])
-
-
-def test_stats_fallback_equals_kernel(rng):
-    """The XLA fallback (decode + reduce) and the fused kernel return the
-    same dict shape and values."""
-    code = toy_code()
-    dcfg = small_cfg(DecodeMethod.OMS)   # bf kind none: exercises en>0 path
-    llr = rng.integers(-7, 8, size=(32, code.n_var)).astype(np.int8)
-    a = jax.tree.map(np.asarray, jax.jit(
-        build_stats_decoder(code, dcfg, backend="xla"))(jnp.asarray(llr)))
-    b = jax.tree.map(np.asarray, jax.jit(
-        build_stats_decoder(code, dcfg, backend="pallas",
-                            interpret=True))(jnp.asarray(llr)))
-    for k in ("err_bits", "mp_iters", "bf_rounds"):
-        np.testing.assert_array_equal(a[k], b[k], err_msg=k)
 
 
 def test_histogram_equals_bincount(rng):
-    from faid_tpu.sim.pipeline import _histogram
+    from faid.sim.pipeline import _histogram
 
     x = jnp.asarray(rng.integers(-2, 15, size=(257,)).astype(np.int32))
     want = jnp.bincount(jnp.clip(x, 0, 10), length=11)

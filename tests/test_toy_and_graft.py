@@ -3,10 +3,10 @@
 import numpy as np
 import jax
 
-from faid_tpu.code import encoder as enc
-from faid_tpu.code.toy import toy_code
-from faid_tpu.config import DecodeMethod, SimConfig
-from faid_tpu.utils.profile import parse_profile, write_profile
+from faid.code import encoder as enc
+from faid.code.toy import toy_code
+from faid.config import DecodeMethod, SimConfig
+from faid.utils.profile import parse_profile, write_profile
 
 
 def test_toy_code_structure():
@@ -27,7 +27,8 @@ def test_toy_encoder_roundtrip(rng):
 
 def test_dryrun_multichip_8():
     import sys
-    sys.path.insert(0, "/root/repo")
+    from pathlib import Path
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
     import __graft_entry__ as g
     g.dryrun_multichip(8)
     g.dryrun_multichip(4)
